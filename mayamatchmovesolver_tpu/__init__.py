@@ -1,10 +1,11 @@
-"""mayamatchmovesolver_tpu — a TPU-native matchmove / bundle-adjustment framework.
+"""mayamatchmovesolver_tpu — a JAX matchmove / bundle-adjustment framework.
 
 A from-scratch re-design of the capabilities of mmSolver (mayaMatchMoveSolver)
-for TPU hardware: the scene evaluation engine, 3DE-compatible lens distortion,
+as JAX/XLA programs that run on an NVIDIA GPU (and on the CPU for tests):
+the scene evaluation engine, 3DE-compatible lens distortion,
 Levenberg-Marquardt bundle adjustment with analytic (autodiff) Jacobians,
-SfM bootstrap, solve strategies, marker/lens file interop and multi-chip
-scaling via jax.sharding — all as JAX/XLA/Pallas programs.
+SfM bootstrap, solve strategies, marker/lens file interop and multi-device
+scaling via jax.sharding.
 
 Capability map (reference file:line cites are to the mmSolver repo):
   core/    — transform / camera / reprojection math
@@ -13,7 +14,7 @@ Capability map (reference file:line cites are to the mmSolver repo):
              (ref: lib/rust/mmscenegraph/src/attr/datablock.rs, scene/flat.rs)
   models/  — 3DEqualizer-compatible lens distortion model families
              (ref: lib/cppbind/mmlens)
-  ops/     — Pallas TPU kernels (ST-map generation, batched linear algebra)
+  ops/     — image-side programs (ST-map generation, warping, lens deform)
   solver/  — residuals, robust loss, box constraints, LM core, Schur/CG,
              solve strategies (ref: src/mmSolver/adjust)
   sfm/     — essential matrix, triangulation, homography, resection,

@@ -5,7 +5,7 @@ Counterpart of the reference's Python API
 Camera/Bundle/Marker/Attribute wrappers come from the scene graph; this
 module adds the Collection + Solver + execute() workflow
 (ref: _api/collection.py:218, _api/_execute/main.py:215) on top of the
-TPU solve engine.
+JAX solve engine.
 
 Typical use:
 

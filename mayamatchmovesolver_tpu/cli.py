@@ -801,9 +801,14 @@ def _cmd_image_warp(args):
 
 
 def main(argv=None):
+    from mayamatchmovesolver_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     parser = argparse.ArgumentParser(
-        prog="mmsolver-tpu",
-        description="TPU-native matchmove solver CLI",
+        prog="mmsolver",
+        description="matchmove solver CLI",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

@@ -16,7 +16,7 @@ def camera_inverse(camera_world_matrix):
     The reference uses a general 4x4 inverse
     (ref: lib/rust/mmscenegraph/src/math/reprojection.rs:34-38); TRS
     world matrices are affine so the closed-form affine inverse is exact
-    (and, unlike jnp.linalg.inv, compiles for f64 on TPU).
+    and needs no LU decomposition.
     """
     from mayamatchmovesolver_tpu.core.transform import affine_inverse
 

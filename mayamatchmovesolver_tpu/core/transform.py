@@ -75,8 +75,8 @@ def euler_to_rotation_matrix(rx_deg, ry_deg, rz_deg, rotate_order):
     third = jnp.take_along_axis(
         mats, perms[..., 2:3, None, None], axis=-3
     ).squeeze(-3)
-    # Full-precision products: TPU matmuls otherwise default to reduced
-    # precision passes, which poisons f64 parity.
+    # Full-precision products: a float32 matmul at default precision
+    # may run in TF32 on the GPU, which poisons the rotation chain.
     compose = lambda a, b: jnp.einsum(  # noqa: E731
         "...ij,...jk->...ik", a, b, precision=jax.lax.Precision.HIGHEST
     )
@@ -165,9 +165,8 @@ def _scatter_axis(out, i, j, k, ti, tj, tk):
 def inverse3(m):
     """Closed-form (adjugate) inverse of (..., 3, 3) matrices.
 
-    Used instead of jnp.linalg.inv because XLA:TPU has no f64 LU
-    decomposition; for 3x3 the adjugate is cheaper and exactly
-    differentiable anyway.
+    Used instead of jnp.linalg.inv: for 3x3 the adjugate needs no LU
+    decomposition, is cheaper and is exactly differentiable.
     """
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]

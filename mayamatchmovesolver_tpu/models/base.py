@@ -141,5 +141,28 @@ def inverse2(m):
     return inv / det[..., None, None]
 
 
+# The 2x2 products are written out elementwise: exact in every dtype,
+# whereas a matmul at default precision may run in TF32 on the GPU.
+
+
+def mat2_mul(a, b):
+    """(..., 2, 2) @ (..., 2, 2)."""
+    return jnp.stack(
+        [
+            jnp.stack([a[..., i, 0] * b[..., 0, j]
+                       + a[..., i, 1] * b[..., 1, j] for j in (0, 1)],
+                      axis=-1)
+            for i in (0, 1)
+        ],
+        axis=-2,
+    )
+
+
 def mat2_apply(m, xy):
-    return jnp.einsum("...ij,...j->...i", m, xy)
+    """(..., 2, 2) matrices applied to (..., 2) points."""
+    x, y = xy[..., 0], xy[..., 1]
+    return jnp.stack(
+        [m[..., 0, 0] * x + m[..., 0, 1] * y,
+         m[..., 1, 0] * x + m[..., 1, 1] * y],
+        axis=-1,
+    )

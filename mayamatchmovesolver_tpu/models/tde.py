@@ -30,6 +30,7 @@ from mayamatchmovesolver_tpu.models.base import (
     fixed_point_inverse,
     inverse2,
     mat2_apply,
+    mat2_mul,
     rotation_matrix_2d,
 )
 
@@ -280,14 +281,14 @@ def _anamorphic_matrices(p, pixel_aspect, rescale=None):
     sy = diag2(jnp.ones_like(p.squeeze_y), p.squeeze_y)
     pa = diag2(pixel_aspect, jnp.ones_like(jnp.asarray(pixel_aspect)))
     if rescale is None:
-        a = rot @ sx @ sy @ pa
-        b = pa @ rot
+        a = mat2_mul(mat2_mul(mat2_mul(rot, sx), sy), pa)
+        b = mat2_mul(pa, rot)
     else:
         # The reference's rescale extender scales x only (it reuses
         # squeeze_x_extender; ref: distortion_structs.h:289-299).
         rs = diag2(rescale, jnp.ones_like(rescale))
-        a = rot @ sx @ sy @ rs @ pa
-        b = pa @ rs @ rot
+        a = mat2_mul(mat2_mul(mat2_mul(mat2_mul(rot, sx), sy), rs), pa)
+        b = mat2_mul(mat2_mul(pa, rs), rot)
     return a, b
 
 

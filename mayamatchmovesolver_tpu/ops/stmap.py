@@ -1,4 +1,4 @@
-"""Lens distortion ST-map generation — Pallas TPU kernels.
+"""Lens distortion ST-map generation.
 
 Replaces the reference's rayon-parallel per-scanline image distortion
 engine (ref: lib/cppbind/mmlens/src/distortion_process.rs:26-70 and the
@@ -6,47 +6,31 @@ tools/lensdistortion CLI): for every pixel of the output image, compute
 where it samples in the input (distort or undistort), producing an
 RGBA float32 ST-map (R=S, G=T, B=0, A=1).
 
-The Pallas kernel tiles the image into (TILE_H, TILE_W) VMEM blocks;
-each block derives its pixel coordinates from the grid position with
-broadcasted_iota (no coordinate tensor ever hits HBM), runs the lens
-polynomial (and its fixed-point inverse for the distort direction)
-entirely in VMEM, and writes the two coordinate planes.
-
-All four 3DE models share one kernel: each model's undistort is
-POST @ core(PRE @ xy) for a polynomial `core` and constant 2x2
-matrices (identity for classic, the cylindric matrix for radial
-deg-4, the rotation/squeeze extender products for the anamorphics —
-ref: lib/cppbind/mmlens/src/distortion_structs.h).  The distort
-direction inverts: inv(PRE) @ core^-1(inv(POST) @ xy) with the ldpk
-fixed-point scheme.  Lens parameters are compile-time constants (an
-ST-map export is one-shot per parameter set) so the entire polynomial
-constant-folds into the kernel.
-
-A pure-XLA fallback covers every model type and doubles as the oracle.
+The map is one jitted XLA program per (model type, size, direction):
+pixel coordinates come from iota, and the lens polynomial (and its
+fixed-point inverse for the distort direction) runs elementwise, so
+XLA fuses the whole map into one pass that writes only the output.
 """
 
 import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from mayamatchmovesolver_tpu.models import base as lens_base
 from mayamatchmovesolver_tpu.models import tde
 
-TILE_H = 8
-TILE_W = 128
 
-
+@functools.partial(
+    jax.jit, static_argnames=("width", "height", "direction", "dtype")
+)
 def stmap_xla(model, film_back, width, height, direction="distort",
               dtype=jnp.float32):
     """Whole-image ST map via plain XLA (any model type).
 
     Pixel centers sample at (x+0.5)/w, (y+0.5)/h in unit space, like
     the reference's image loops (ref: distortion_process.rs per-pixel
-    identity coordinates).  Returns (H, W, 4) float32.
+    identity coordinates).  `dtype` is the evaluation precision.
+    Returns (H, W, 4) float32.
     """
     ys = (jnp.arange(height, dtype=dtype) + 0.5) / height
     xs = (jnp.arange(width, dtype=dtype) + 0.5) / width
@@ -68,261 +52,8 @@ def stmap_xla(model, film_back, width, height, direction="distort",
     return rgba.astype(jnp.float32)
 
 
-# ---------------------------------------------------------------------------
-# Plane-form polynomial cores (x/y as separate (TILE_H, TILE_W) planes;
-# same math as models/tde.py, checked against it by the oracle tests).
-
-
-def _classic_core(params, x, y):
-    ld, sq, cx, cy, qu = params
-    cxx = ld / sq
-    cxy = (ld + cx) / sq
-    cyx = ld + cy
-    cyy = ld
-    qs = qu / sq
-    x2, y2 = x * x, y * y
-    x4, y4 = x2 * x2, y2 * y2
-    xy2 = x2 * y2
-    qx = x * (1.0 + cxx * x2 + cxy * y2 + qs * x4 + 2.0 * qs * xy2
-              + qs * y4)
-    qy = y * (1.0 + cyx * x2 + cyy * y2 + qu * x4 + 2.0 * qu * xy2
-              + qu * y4)
-    return qx, qy
-
-
-def _radial_deg4_core(params, x, y):
-    c2, u2, v2, c4, u4, v4 = params
-    x2, y2 = x * x, y * y
-    xy_ = x * y
-    r2 = x2 + y2
-    r4 = r2 * r2
-    radial = 1.0 + c2 * r2 + c4 * r4
-    qx = (
-        x * radial
-        + (r2 + 2.0 * x2) * (u2 + u4 * r2)
-        + 2.0 * xy_ * (v2 + v4 * r2)
-    )
-    qy = (
-        y * radial
-        + (r2 + 2.0 * y2) * (v2 + v4 * r2)
-        + 2.0 * xy_ * (u2 + u4 * r2)
-    )
-    return qx, qy
-
-
-def _anamorphic_core(params, x, y):
-    (cx02, cy02, cx22, cy22, cx04, cy04, cx24, cy24, cx44,
-     cy44) = params
-    x2, y2 = x * x, y * y
-    r2 = x2 + y2
-    r4 = r2 * r2
-    safe_r2 = jnp.maximum(r2, 1e-30)
-    cos2 = (x2 - y2) / safe_r2
-    cos4 = 2.0 * cos2 * cos2 - 1.0
-    fx = (
-        1.0 + cx02 * r2 + cx04 * r4
-        + cos2 * (cx22 * r2 + cx24 * r4)
-        + cos4 * cx44 * r4
-    )
-    fy = (
-        1.0 + cy02 * r2 + cy04 * r4
-        + cos2 * (cy22 * r2 + cy24 * r4)
-        + cos4 * cy44 * r4
-    )
-    return x * fx, y * fy
-
-
-def _model_kernel_config(model, film_back):
-    """(core_fn, params, pre, post) for the uniform
-    undistort(xy) = post @ core(pre @ xy) structure.  pre/post are
-    host-side numpy 2x2 matrices (compile-time constants)."""
-    eye = np.eye(2)
-    if isinstance(model, tde.TdeClassic):
-        params = (
-            float(model.distortion),
-            float(model.anamorphic_squeeze),
-            float(model.curvature_x),
-            float(model.curvature_y),
-            float(model.quartic_distortion),
-        )
-        return _classic_core, params, eye, eye
-    if isinstance(model, tde.TdeRadialStdDeg4):
-        params = (
-            float(model.degree2_distortion),
-            float(model.degree2_u),
-            float(model.degree2_v),
-            float(model.degree4_distortion),
-            float(model.degree4_u),
-            float(model.degree4_v),
-        )
-        post = np.asarray(
-            tde._cylindric_matrix(
-                model.cylindric_direction, model.cylindric_bending
-            ),
-            dtype=np.float64,
-        )
-        return _radial_deg4_core, params, eye, post
-    if isinstance(model, (tde.TdeAnamorphicStdDeg4,
-                          tde.TdeAnamorphicStdDeg4Rescaled)):
-        params = (
-            float(model.degree2_cx02), float(model.degree2_cy02),
-            float(model.degree2_cx22), float(model.degree2_cy22),
-            float(model.degree4_cx04), float(model.degree4_cy04),
-            float(model.degree4_cx24), float(model.degree4_cy24),
-            float(model.degree4_cx44), float(model.degree4_cy44),
-        )
-        rescale = (
-            model.rescale
-            if isinstance(model, tde.TdeAnamorphicStdDeg4Rescaled)
-            else None
-        )
-        a, b = tde._anamorphic_matrices(
-            model, film_back.pixel_aspect, rescale
-        )
-        return (
-            _anamorphic_core,
-            params,
-            np.linalg.inv(np.asarray(b, dtype=np.float64)),
-            np.asarray(a, dtype=np.float64),
-        )
-    return None
-
-
-def _mat_apply_planes(m, x, y):
-    if m is None:
-        return x, y
-    return (m[0][0] * x + m[0][1] * y, m[1][0] * x + m[1][1] * y)
-
-
-def _stmap_kernel(out_s_ref, out_t_ref, *, width, height, distort,
-                  inverse_iterations, core, params, pre, post,
-                  film_back):
-    """One (TILE_H, TILE_W) block of the ST map."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    row0 = (i * TILE_H).astype(jnp.float32)
-    col0 = (j * TILE_W).astype(jnp.float32)
-
-    # iota must be integer-typed on TPU; cast afterwards.
-    rows = jax.lax.broadcasted_iota(
-        jnp.int32, (TILE_H, TILE_W), 0
-    ).astype(jnp.float32)
-    cols = jax.lax.broadcasted_iota(
-        jnp.int32, (TILE_H, TILE_W), 1
-    ).astype(jnp.float32)
-    y_unit = (rows + row0 + 0.5) / height
-    x_unit = (cols + col0 + 0.5) / width
-
-    # unit -> diagonally normalized (film back + lens center offset).
-    fbw, fbh, lcox, lcoy = film_back
-    radius = (fbw * fbw + fbh * fbh) ** 0.5 * 0.5
-    x_dn = ((x_unit - 0.5) * fbw - lcox) / radius
-    y_dn = ((y_unit - 0.5) * fbh - lcoy) / radius
-
-    if distort:
-        # Fixed-point inverse of post @ core(pre @ xy):
-        #   inv(pre) @ core^-1(inv(post) @ xy)
-        # (ldpk scheme p <- p + (target - core(p)), ref: models/base.py
-        # fixed_point_inverse).
-        tx, ty = _mat_apply_planes(
-            np.linalg.inv(post).tolist(), x_dn, y_dn
-        )
-        ux, uy = core(params, tx, ty)
-        px = tx - (ux - tx)
-        py = ty - (uy - ty)
-
-        def body(_, carry):
-            px, py = carry
-            fx, fy = core(params, px, py)
-            return (px + (tx - fx), py + (ty - fy))
-
-        px, py = jax.lax.fori_loop(
-            0, inverse_iterations, body, (px, py)
-        )
-        out_x, out_y = _mat_apply_planes(
-            np.linalg.inv(pre).tolist(), px, py
-        )
-    else:
-        ix, iy = _mat_apply_planes(pre.tolist(), x_dn, y_dn)
-        qx, qy = core(params, ix, iy)
-        out_x, out_y = _mat_apply_planes(post.tolist(), qx, qy)
-
-    # dn -> unit.
-    s = (out_x * radius + fbw * 0.5 + lcox) / fbw
-    t = (out_y * radius + fbh * 0.5 + lcoy) / fbh
-    out_s_ref[:, :] = s
-    out_t_ref[:, :] = t
-
-
-def stmap_pallas(model, film_back, width, height, direction="distort",
-                 inverse_iterations=20):
-    """Pallas ST map for any 3DE model; returns (H, W, 4) float32."""
-    config = _model_kernel_config(model, film_back)
-    if config is None:
-        raise TypeError(
-            "no Pallas ST-map kernel for %r" % (type(model),)
-        )
-    core, params, pre, post = config
-    height_pad = -(-height // TILE_H) * TILE_H
-    width_pad = -(-width // TILE_W) * TILE_W
-
-    kernel = functools.partial(
-        _stmap_kernel,
-        width=float(width),
-        height=float(height),
-        distort=(direction == "distort"),
-        inverse_iterations=inverse_iterations,
-        core=core,
-        params=params,
-        pre=pre,
-        post=post,
-        film_back=(
-            float(film_back.film_back_width_cm),
-            float(film_back.film_back_height_cm),
-            float(film_back.lens_center_offset_x_cm),
-            float(film_back.lens_center_offset_y_cm),
-        ),
-    )
-    grid = (height_pad // TILE_H, width_pad // TILE_W)
-    s, t = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[],
-        out_specs=(
-            pl.BlockSpec(
-                (TILE_H, TILE_W), lambda i, j: (i, j),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (TILE_H, TILE_W), lambda i, j: (i, j),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((height_pad, width_pad), jnp.float32),
-            jax.ShapeDtypeStruct((height_pad, width_pad), jnp.float32),
-        ),
-    )()
-    s = s[:height, :width]
-    t = t[:height, :width]
-    return jnp.stack(
-        [s, t, jnp.zeros_like(s), jnp.ones_like(s)], axis=-1
-    )
-
-
-def stmap_classic_pallas(model: tde.TdeClassic,
-                         film_back: lens_base.FilmBack,
-                         width, height, direction="distort",
-                         inverse_iterations=20):
-    """Back-compat alias for the classic model."""
-    return stmap_pallas(model, film_back, width, height,
-                        direction=direction,
-                        inverse_iterations=inverse_iterations)
-
-
-def stmap(model, film_back, width, height, direction="distort",
-          use_pallas=True):
-    """Dispatch: Pallas fast path for supported models, XLA otherwise.
+def stmap(model, film_back, width, height, direction="distort"):
+    """ST map of one lens model, or of a lens-layer stack.
 
     `model` may be a sequence of models — a lens-layer stack chained
     like the reference's m_inputLensModel list
@@ -330,37 +61,26 @@ def stmap(model, film_back, width, height, direction="distort",
     stmap_stack."""
     # Lens models are NamedTuples; only a plain list/tuple is a stack.
     if isinstance(model, (list, tuple)) and not hasattr(model, "_fields"):
-        return stmap_stack(model, film_back, width, height, direction,
-                           use_pallas=use_pallas)
-    if use_pallas and not isinstance(model, tde.Passthrough):
-        try:
-            return stmap_pallas(
-                model, film_back, width, height, direction
-            )
-        except Exception:  # pragma: no cover - fallback on any lowering gap
-            pass
+        return stmap_stack(model, film_back, width, height, direction)
     return stmap_xla(model, film_back, width, height, direction)
 
 
-def stmap_stack(models, film_back, width, height, direction="distort",
-                use_pallas=True):
+def stmap_stack(models, film_back, width, height, direction="distort"):
     """ST map for a multi-layer lens stack.
 
-    The first layer runs through the normal single-layer path (Pallas
-    when supported); each subsequent layer is applied point-wise to the
-    previous layer's output coordinates — one fused XLA map over the
-    (H, W) coordinate planes, which is how the chained evaluation
-    vectorizes on TPU (the reference chains per-point virtual calls,
+    The first layer runs through the single-layer path; each
+    subsequent layer is applied point-wise to the previous layer's
+    output coordinates — one elementwise map over the (H, W)
+    coordinate planes (the reference chains per-point virtual calls,
     lens_model.h:36-120).
     """
     models = list(models)
     if not models:
         return stmap(tde.Passthrough(), film_back, width, height,
-                     direction, use_pallas=use_pallas)
+                     direction)
     if direction != "distort":
         models = models[::-1]
-    out = stmap(models[0], film_back, width, height, direction,
-                use_pallas=use_pallas)
+    out = stmap(models[0], film_back, width, height, direction)
     for model in models[1:]:
         pts_marker = out[..., :2].astype(jnp.result_type(float)) - 0.5
         if direction == "distort":

@@ -7,7 +7,7 @@ sharded over the device mesh; each device owns its frame block's
 camera parameters, observations and Jacobian blocks; bundles (the
 3D points) and the shared border parameters (static focal / lens
 coefficients — the arrowhead; ref: docs/source/solver_design.rst:
-188-218) are the *replicated* state reduced over ICI.
+188-218) are the *replicated* state reduced across devices.
 
 Per LM iteration:
   1. each device builds its local per-observation Jacobian blocks
@@ -35,7 +35,7 @@ The LM loop uses the true gain ratio with Nielsen's mu update and the
 same eps1/2/3 stopping semantics as solver/lm.py — converged problems
 stop early instead of burning max_iterations.
 
-Objective parity with the single-chip path: every residual and
+Objective parity with the single-device path: every residual and
 Jacobian block is produced by solver/ba.py's _observation_residual via
 ba_cost / assemble_normal_blocks on a dataclasses.replace'd view of
 the SAME BAProblem, so the static loss_type/loss_scale fields (robust
@@ -54,16 +54,13 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mayamatchmovesolver_tpu.core import transform as tfm_math
 from mayamatchmovesolver_tpu.solver import ba as ba_mod
 from mayamatchmovesolver_tpu.solver import linalg
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 
 class ShardedBAResult(NamedTuple):
@@ -433,7 +430,7 @@ def sharded_solve_ba(
             P(),                 # njev
         ),
     )
-    # f32 accumulation for the normal equations (see ba.solve_ba).
+    # Full f32 for the normal equations (see ba.solve_ba).
     with jax.default_matmul_precision("float32"):
         cam, bnd, sh, cost, cost0, it, stop, nfev, njev = fn(
             problem.marker_uv,

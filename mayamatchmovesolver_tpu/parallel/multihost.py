@@ -1,7 +1,7 @@
 """Multi-host entry point: jax.distributed bootstrap + host-aware mesh.
 
 The reference is single-process (SURVEY.md section 2.3); this is the
-TPU-native scaling layer it never had, per SURVEY section 7 step 7 and
+multi-host scaling layer it never had, per SURVEY section 7 step 7 and
 the BASELINE multi-host target.  Design:
 
   * `initialize()` wraps jax.distributed.initialize — after it,
@@ -69,9 +69,9 @@ def num_hosts():
 def host_mesh(axis_names=("dcn", "chips")):
     """Global 2-D mesh (hosts x local devices).
 
-    The outer axis crosses hosts (DCN), the inner axis stays on-host
-    (ICI on TPU slices).  Requires the same local device count on every
-    host.
+    The outer axis crosses hosts (the network), the inner axis stays
+    on-host (NVLink between the cards of one host).  Requires the same
+    local device count on every host.
     """
     devices = jax.devices()
     n_hosts = jax.process_count()
@@ -91,7 +91,8 @@ def frame_mesh(axis_name="frames"):
     parallel.sharded / parallel.ba_sharded.  On multi-host runs the
     device order keeps each host's chips contiguous, so a blocked frame
     sharding keeps neighboring frame blocks on the same host and the
-    psum's hierarchical lowering rides ICI before DCN."""
+    psum's hierarchical lowering reduces on-host before crossing the
+    network."""
     return Mesh(np.asarray(jax.devices()), (axis_name,))
 
 

@@ -1,7 +1,7 @@
 """Multi-device bundle adjustment: frame-block sharding over a Mesh.
 
 The reference is single-process and single-threaded (SURVEY.md section
-2.3); this module is the TPU-native capability it never had.  The frame
+2.3); this module is the multi-device capability it never had.  The frame
 axis — the reference's only batch axis
 (ref: lib/rust/mmscenegraph/src/scene/flat.rs:172 evaluates all frames in
 a flat array) — becomes the sharded data axis:
@@ -15,8 +15,9 @@ a flat array) — becomes the sharded data axis:
     reduced-camera-system pattern (Schur elimination of per-frame
     parameters happens block-locally).
 
-Collectives ride ICI via XLA's psum; nothing here is device-count
-specific, so the same code runs on a virtual CPU mesh or a pod slice.
+Collectives are XLA psums (NCCL between GPUs); nothing here is
+device-count specific, so the same code runs on a virtual CPU mesh or
+on the cards of one host.
 """
 
 import dataclasses
@@ -25,16 +26,13 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mayamatchmovesolver_tpu.scene.attrblock import AttrBlock
 from mayamatchmovesolver_tpu.solver import linalg
 from mayamatchmovesolver_tpu.solver import problem as problem_mod
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 
 def make_frame_mesh(devices=None, axis_name="frames"):
@@ -152,7 +150,7 @@ def sharded_levenberg_marquardt(
     cminpack driver, adjust_cminpack_lmdif.cpp:61); only the data layout
     differs.
     """
-    # f32 accumulation for the normal equations (see ba.solve_ba).
+    # Full f32 for the normal equations (see ba.solve_ba).
     with jax.default_matmul_precision("float32"):
         return _sharded_lm_impl(
             problem, x0, mesh, max_iterations, tau, eps1, eps2, eps3,

@@ -1,6 +1,6 @@
 """Structure-of-arrays attribute storage.
 
-TPU-native redesign of the reference's AttrDataBlock
+Redesign of the reference's AttrDataBlock
 (ref: lib/rust/mmscenegraph/src/attr/datablock.rs:29-90): attributes are
 either *static* (one value) or *dense-animated* (one value per frame of a
 contiguous frame range).  Instead of enum AttrIds we pack every attribute
@@ -78,7 +78,7 @@ def gather_attr_values(attrs: AttrBlock, codes, frame_indices):
 
     Equivalent to AttrDataBlock::get_attr_value looped over codes/frames
     (ref: lib/rust/mmscenegraph/src/attr/datablock.rs), but as two gathers
-    plus a select so it is one fused XLA op on TPU.
+    plus a select so it is one fused XLA op.
     """
     codes = jnp.asarray(codes)
     idx = jnp.maximum(codes, 0) // 2

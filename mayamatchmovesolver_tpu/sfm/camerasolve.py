@@ -139,7 +139,7 @@ def filter_bad_bundles(
     behind the camera (ref: the bad-bundle filtering of camera_solve,
     solvercamerautils.py:182-227 — reprojection-error and
     behind-camera culls).  Returns the updated valid mask."""
-    err, depth = reprojection_errors_cv(
+    err, depth = jax.jit(reprojection_errors_cv)(
         jnp.asarray(cam_r), jnp.asarray(cam_t), jnp.asarray(points3d),
         jnp.asarray(bearings),
     )
@@ -196,12 +196,16 @@ def camera_solve(
             % (int(shared.sum()), f0, f1)
         )
 
-    pose = twoview.robust_relative_pose(
+    # Every device call below is jitted: run eagerly, each primitive of
+    # the RANSAC and Jacobi loops would compile and dispatch on its own.
+    pose = jax.jit(
+        lambda b0, b1, k: twoview.robust_relative_pose(
+            b0, b1, key=k, num_hypotheses=128, inlier_threshold=1e-5,
+        )
+    )(
         jnp.asarray(bearings[shared, f0]),
         jnp.asarray(bearings[shared, f1]),
-        key=key,
-        num_hypotheses=128,
-        inlier_threshold=1e-5,
+        key,
     )
     r1 = np.asarray(pose.rotation)
     t1 = np.asarray(pose.translation)
@@ -220,8 +224,9 @@ def camera_solve(
     # set; invalid rows are masked out afterwards).
     pts3d = np.zeros((num_markers, 3))
     valid = np.zeros(num_markers, bool)
+    triangulate = jax.jit(twoview.triangulate_linear)
     tri = np.asarray(
-        twoview.triangulate_linear(
+        triangulate(
             jnp.eye(3), jnp.zeros(3), jnp.asarray(r1), jnp.asarray(t1),
             jnp.asarray(bearings[:, f0]),
             jnp.asarray(bearings[:, f1]),
@@ -244,7 +249,6 @@ def camera_solve(
             inlier_threshold=4e-4,
         )
     )
-    triangulate = jax.jit(twoview.triangulate_linear)
     order = np.argsort(-connected_frame_scores(enable & valid[:, None]))
     for f in order:
         if solved[f]:
@@ -283,6 +287,12 @@ def camera_solve(
     # re-resection of all frames (including previously unsolvable ones)
     # from the improved structure.
     tri_mv = jax.jit(triangulate_multiview)
+    resect_all = jax.jit(jax.vmap(
+        lambda p3, b_col, w_col: twoview.resection_pose(
+            p3, b_col, weights=w_col
+        ),
+        in_axes=(None, 0, 0),
+    ))
     for _ in range(max(int(refine_rounds), 0)):
         obs = enable & solved[None, :]  # (M, F)
         seen2 = obs.sum(axis=1) >= 2
@@ -312,11 +322,8 @@ def camera_solve(
         # one vmapped resection over the frame axis.
         seen_f = enable & valid[:, None]  # (M, F)
         resectable = seen_f.sum(axis=0) >= 6
-        rs, ts = jax.vmap(
-            lambda b_col, w_col: twoview.resection_pose(
-                jnp.asarray(pts3d), b_col, weights=w_col
-            )
-        )(
+        rs, ts = resect_all(
+            jnp.asarray(pts3d),
             jnp.asarray(np.transpose(bearings, (1, 0, 2))),
             jnp.asarray(seen_f.T, dtype=np.float64),
         )

@@ -1,7 +1,7 @@
 """Two-view geometry: essential matrix, RANSAC, pose, triangulation,
 homography.
 
-TPU-native counterpart of the reference's SfM layer
+Counterpart of the reference's SfM layer
 (ref: src/mmSolver/sfm/camera_relative_pose.cpp:94-157
 `robust_relative_pose` via openMVG ACRANSAC 8-point essential;
 sfm/homography.cpp; vendored external/openMVG solvers).  Design
@@ -11,8 +11,8 @@ differences, deliberately:
     front and every model is estimated and scored with one vmap, so the
     whole robust estimation is a single XLA program (the reference
     iterates hypotheses serially on CPU);
-  * null spaces come from our Jacobi eigensolver (solver/linalg.py)
-    since XLA:TPU lacks f64 SVD.
+  * null spaces come from the package's Jacobi eigensolver
+    (solver/linalg.py), which batches under vmap in any dtype.
 
 Points are in normalized camera coordinates (undistorted, focal-divided
 bearing directions with z=1 implied), matching what the reference feeds

@@ -1,10 +1,10 @@
 """Solver state checkpoint / resume.
 
 The reference persists solver state through the Maya scene (Collection
-node serialization, collection.py:375-415) and undo stacks; the TPU
+node serialization, collection.py:375-415) and undo stacks; this
 framework checkpoints the attribute block + solve configuration to an
 npz so long solves resume across processes (SURVEY.md section 5
-"checkpoint/resume" TPU equivalent).
+"checkpoint/resume").
 """
 
 import json
@@ -79,7 +79,7 @@ def save_lm_state(file_path, state, metadata=None):
     """Checkpoint a full resumable LM state (solver/lm.py LMState —
     the per-iteration-block state the chunked driver passes between
     dispatches).  Resume by loading and feeding it back into
-    lm.lm_run_block (TPU equivalent of SURVEY §5 "checkpoint of the
+    lm.lm_run_block (SURVEY §5 "checkpoint of the
     parameter vector + solver state per LM iteration block")."""
     arrays = {f: np.asarray(getattr(state, f)) for f in state._fields}
     np.savez_compressed(

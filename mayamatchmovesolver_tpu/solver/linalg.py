@@ -1,11 +1,12 @@
-"""Dense linear algebra primitives that compile for every dtype on TPU.
+"""Dense linear algebra primitives built from elementwise ops and
+matmuls.
 
-XLA's TPU backend only implements library decompositions (LU, QR,
-Cholesky) for f32; the solver's parity path runs f64 (which the TPU
-emulates for arithmetic).  These routines build the factorizations from
-elementwise ops and matmuls only, so one code path serves f32 TPU
-production and f64 parity testing.  They are also the building blocks
-the Schur-complement path reuses for the reduced camera system.
+The factorizations (Cholesky, Jacobi eigen/SVD, closed-form 3x3) need
+no library decomposition, so one code path serves float32 production
+and float64 parity testing on every backend, batched under vmap.  They
+are also the building blocks the Schur-complement path reuses for the
+reduced camera system.  Whether cuSOLVER-backed jnp.linalg is faster on
+the GPU is an open measurement.
 """
 
 import jax
@@ -14,7 +15,7 @@ import jax.numpy as jnp
 
 # Panel width for the blocked factorization: the unblocked column loop
 # runs inside panels of this size; everything outside is batched
-# matmuls (MXU work).
+# matmuls.
 _CHOL_BLOCK = 64
 
 
@@ -27,7 +28,7 @@ def cholesky(a):
     (n-k x block) off-diagonal panel with one triangular solve, and
     downdate the trailing submatrix with ONE matmul.  The sequential
     depth drops from O(n) columns to O(n/block) panels and the O(n^3)
-    work lands in matmuls (MXU), which is what the dense-LM fallback
+    work lands in matmuls, which is what the dense-LM fallback
     needs at n ~ 10^3 (round-3 verdict weak #5).
     """
     a = jnp.asarray(a)
@@ -63,7 +64,7 @@ def _cholesky_unblocked(a):
     # goes negative from rounding) and the factorization would emit
     # inf/NaN.  Flooring at eps * a_jj regularizes only the numerically
     # invisible subspace — inert in f64 for the solver's conditioning,
-    # load-bearing in f32 on TPU (e.g. the per-frame focal<->tz
+    # load-bearing in f32 (e.g. the per-frame focal<->tz
     # near-degeneracy of BA with solve_focal).
     eps = jnp.asarray(jnp.finfo(a.dtype).eps, a.dtype)
     tiny = jnp.asarray(jnp.finfo(a.dtype).tiny, a.dtype)
@@ -141,7 +142,7 @@ def solve_spd(a, b):
 
     The normal equations mix parameter units (mm, degrees, world
     units); scaling to unit diagonal keeps the Cholesky well
-    conditioned in f32 on TPU — the identity transform in exact
+    conditioned in f32 — the identity transform in exact
     arithmetic, so f64 parity is unaffected.
     """
     diag = jnp.diagonal(a, axis1=-2, axis2=-1)
@@ -158,8 +159,8 @@ def jacobi_eigh(a, sweeps=16):
     """Symmetric eigendecomposition by cyclic Jacobi rotations.
 
     Returns (eigenvalues ascending, eigenvectors as columns).  Built from
-    elementwise ops only so it compiles for f64 on TPU (XLA's Eigh/SVD
-    do not).  Intended for the small matrices of SfM linear systems
+    elementwise ops only, so it batches under vmap in any dtype.
+    Intended for the small matrices of SfM linear systems
     (3x3 .. 12x12); cost is sweeps * n(n-1)/2 rotations.
     """
     a = jnp.asarray(a)
@@ -197,8 +198,7 @@ def jacobi_eigh(a, sweeps=16):
     def sweep(_, state):
         # One cyclic sweep, rotations unrolled (n(n-1)/2 of them); the
         # sweep count loops via fori so the compiled program stays
-        # small (an unrolled 16x sweep nest was large enough to OOM the
-        # remote TPU compiler under vmap).
+        # small under vmap.
         for pq in pairs:
             state = rotate(state, pq)
         return state
@@ -235,8 +235,7 @@ def svd3_rotation(m, sweeps=16):
 
 
 def det3(m):
-    """Explicit 3x3 determinant (jnp.linalg.det lowers to LU, which
-    XLA:TPU lacks for f64)."""
+    """Explicit 3x3 determinant (no LU decomposition)."""
     return (
         m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
         - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])

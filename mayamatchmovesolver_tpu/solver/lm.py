@@ -1,6 +1,6 @@
 """Levenberg-Marquardt core, fully jit-compiled.
 
-TPU-native replacement for the reference's cminpack lmdif/lmder drivers
+Replacement for the reference's cminpack lmdif/lmder drivers
 (ref: src/mmSolver/adjust/adjust_cminpack_lmdif.cpp:61-202,
 adjust_cminpack_lmder.cpp): analytic Jacobians via jax.jacfwd (the
 reference computes forward/central finite differences through the scene
@@ -76,11 +76,12 @@ def _make_normal_system(residual_fn, mode):
     adjust_solveFunc.cpp:305-525).  rev mode: one VJP per residual row
     via jacrev (better when m << n).
     """
-    # The J^T J / J^T r reductions are pinned to float32 accumulation:
-    # on TPU the default bf16 matmul passes make the normal equations
-    # singular (identical f32 programs converge on CPU, so CPU tests
-    # cannot catch a missing pin).  Scene evaluation inside
-    # residual_fn keeps the caller's (cheaper) precision.
+    # The J^T J / J^T r reductions are pinned to full float32: on the
+    # GPU a float32 matmul at default precision may run in TF32 (a
+    # 10-bit mantissa), which loses the conditioning the normal
+    # equations need (CPU matmuls are always full precision, so CPU
+    # tests cannot catch a missing pin).  Scene evaluation inside
+    # residual_fn keeps the caller's precision.
     _hi = jax.lax.Precision.HIGHEST
 
     if mode == "rev":
@@ -120,16 +121,15 @@ def _solve_damped(jtj, jtr, mu, diag_floor=1e-12):
     S = diag(JtJ)^-1/2, dx = S y — which is the same linear system but
     with unit diagonal, so mixed-unit parameter sets (mm focal +
     degrees + world units: column norms spanning 3+ decades) stay
-    within float32's conditioning budget on TPU.  Uses our own
-    Cholesky (solver/linalg.py) because XLA:TPU lacks f64
-    decompositions.
+    within float32's conditioning budget.  Uses the package's own
+    Cholesky (solver/linalg.py).
     """
     d = jnp.maximum(jnp.diag(jtj), diag_floor)
     s = jax.lax.rsqrt(d)
     a = jtj * (s[:, None] * s[None, :])
     a = a + mu * jnp.eye(a.shape[0], dtype=a.dtype)
-    # The factorization's inner products must accumulate in f32 on TPU
-    # (bf16 passes lose the conditioning the Jacobi scaling bought).
+    # The factorization's inner products must accumulate in full f32
+    # (TF32 products lose the conditioning the Jacobi scaling bought).
     with jax.default_matmul_precision("float32"):
         y = linalg.solve_spd(a, -(s * jtr))
     return s * y

@@ -1,6 +1,6 @@
 """Solve-problem definition: parameters <-> attributes, residual assembly.
 
-This is the TPU-native replacement for the reference's SolverData +
+This is the replacement for the reference's SolverData +
 solveFunc residual callback (ref: src/mmSolver/adjust/adjust_solveFunc.cpp:529,
 adjust_measureErrors.cpp:392-521, adjust_setParameters.cpp:174-250):
 

@@ -1,6 +1,6 @@
 """Tool data-capabilities.
 
-TPU-native equivalents of the data paths inside the reference's artist
+Equivalents of the data paths inside the reference's artist
 tool packages (ref: python/mmSolver/tools/ — ~80 packages).  The Qt UI
 layers are out of scope (SURVEY.md section 7); what survives here is
 every tool's underlying math/data operation, as batched JAX/NumPy

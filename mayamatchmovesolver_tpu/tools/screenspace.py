@@ -56,7 +56,7 @@ def screen_to_world(ev: flatscene.SceneEval, screen_xy, depth,
     Uses the projection matrix's sparse structure
     (core/camera.py projection_matrix: rows
     [m00 0 m02 0; 0 m11 m12 0; 0 0 m22 m23; 0 0 -1 0]) to unproject
-    analytically — no 4x4 inverse, so it compiles for f64 on TPU:
+    analytically — no 4x4 inverse:
       w_clip = depth,  x_ndc = 2 * sx
       x_cam = (x_ndc * depth - m02 * z_cam) / m00,   z_cam = -depth.
     """

@@ -14,7 +14,7 @@ import os
 CONFIG_PATH_VAR = "MMSOLVER_TPU_CONFIG_PATH"
 
 _DEFAULTS = {
-    # Default compute dtype for solver math on TPU.  Tests and parity
+    # Default compute dtype for solver math.  Tests and parity
     # checks run float64 on CPU (see tests/conftest.py).
     "solver/default_dtype": "float32",
     # Default solver backend name (the reference picks via

@@ -2,7 +2,7 @@
 
 The reference has three tracing layers (SURVEY.md section 5): solver
 phase timers (adjust_data.h:58-72), Maya MProfiler scopes, and Python
-cProfile per test.  TPU equivalents: wall-clock phase timers plus
+cProfile per test.  Here: wall-clock phase timers plus
 jax.profiler trace capture for the XLA timeline.
 """
 

@@ -1,6 +1,6 @@
 """Ray ↔ triangle-mesh intersection.
 
-TPU-native counterpart of the reference's raytrace utility
+Counterpart of the reference's raytrace utility
 (ref: python/mmSolver/utils/raytrace.py:51-279 — `closest_intersect`
 and `closest_intersect_with_normal` via Maya's MFnMesh
 closestIntersection): here the mesh is plain arrays (vertices,

@@ -65,7 +65,7 @@ def test_batched_orders():
     assert m.shape == (6, 3, 3)
     for i in range(6):
         single = tfm.euler_to_rotation_matrix(30.0, 10.0, 20.0, i)
-        # TPU f64 matmul emulation bottoms out around 1e-9.
+        # The f64 rotation chain bottoms out around 1e-9.
         np.testing.assert_allclose(np.asarray(m[i]), np.asarray(single),
                                    atol=1e-7)
 

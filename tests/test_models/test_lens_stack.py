@@ -142,8 +142,7 @@ def test_stmap_stack_matches_oracle():
         tde.TdeRadialStdDeg4.create(degree2_distortion=0.05),
     ]
     h, w = 32, 64
-    out = np.asarray(stmap_mod.stmap(models, fb, w, h, "distort",
-                                     use_pallas=False))
+    out = np.asarray(stmap_mod.stmap(models, fb, w, h, "distort"))
     # Oracle: chain tde.distort over the pixel grid by hand.
     ys = (np.arange(h) + 0.5) / h
     xs = (np.arange(w) + 0.5) / w
@@ -156,8 +155,7 @@ def test_stmap_stack_matches_oracle():
     )
 
     # Undistort o distort ~= identity through the stack.
-    und = np.asarray(stmap_mod.stmap_stack(models, fb, w, h, "undistort",
-                                           use_pallas=False))
+    und = np.asarray(stmap_mod.stmap_stack(models, fb, w, h, "undistort"))
     # Sample the undistort map at the distorted positions is nontrivial;
     # instead check the point-path inverse directly.
     back = jnp.asarray(np.asarray(pts))

@@ -1,18 +1,15 @@
-"""ST-map kernel tests: Pallas fast path vs XLA oracle — the analogue
-of the reference's backend-agreement matrix applied to the image path
-(ref: distortion kernels, lib/cppbind/mmlens/src/distortion_process.rs).
+"""ST-map tests: the XLA map against its float64 evaluation and the
+point-wise lens models (ref: distortion kernels,
+lib/cppbind/mmlens/src/distortion_process.rs).
 """
 
-import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from mayamatchmovesolver_tpu import models
+from mayamatchmovesolver_tpu.models import tde
 import mayamatchmovesolver_tpu.ops.stmap as stmap_mod
-
-
-def _is_tpu():
-    return jax.devices()[0].platform == "tpu"
 
 
 def test_stmap_xla_identity_for_passthrough():
@@ -88,24 +85,44 @@ def _all_models():
     ]
 
 
-@pytest.mark.skipif(not _is_tpu(), reason="Pallas TPU kernel needs TPU")
-@pytest.mark.parametrize("name,model", _all_models())
-def test_stmap_pallas_matches_xla_oracle(name, model):
-    """Pallas kernel vs XLA oracle over every 3DE model — the
-    backend-agreement matrix of the image path."""
-    fb = models.FilmBack.create(
+def _film_back():
+    return models.FilmBack.create(
         width_cm=3.6, height_cm=2.4, offset_x_cm=0.05, offset_y_cm=-0.02
     )
-    for direction in ("distort", "undistort"):
-        fast = np.asarray(
-            stmap_mod.stmap_pallas(
-                model, fb, 200, 100, direction=direction
-            )
-        )
-        oracle = np.asarray(
-            stmap_mod.stmap_xla(model, fb, 200, 100, direction=direction)
-        )
-        np.testing.assert_allclose(
-            fast[..., :2], oracle[..., :2], atol=2e-5,
-            err_msg="%s/%s" % (name, direction),
-        )
+
+
+@pytest.mark.parametrize("direction", ["distort", "undistort"])
+@pytest.mark.parametrize("name,model", _all_models())
+def test_stmap_matches_pointwise_models(name, model, direction):
+    """stmap() of every 3DE model in both directions equals the lens
+    model applied point by point to the pixel-centre grid."""
+    fb = _film_back()
+    w, h = 40, 24
+    out = np.asarray(stmap_mod.stmap(model, fb, w, h, direction))
+    assert out.shape == (h, w, 4) and out.dtype == np.float32
+    ys = (np.arange(h) + 0.5) / h
+    xs = (np.arange(w) + 0.5) / w
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    pts = jnp.asarray(np.stack([gx - 0.5, gy - 0.5], axis=-1))
+    fn = tde.distort if direction == "distort" else tde.undistort
+    expect = np.asarray(fn(model, fb, pts)) + 0.5
+    np.testing.assert_allclose(out[..., :2], expect, atol=2e-6,
+                               err_msg="%s/%s" % (name, direction))
+    np.testing.assert_array_equal(out[..., 2], 0.0)
+    np.testing.assert_array_equal(out[..., 3], 1.0)
+
+
+def test_stmap_dispatch_takes_xla_path_and_raises(monkeypatch):
+    """A single model goes to stmap_xla, and a failure there reaches
+    the caller: nothing swallows it."""
+    calls = []
+
+    def failing(*args, **kwargs):
+        calls.append(args)
+        raise RuntimeError("lowering failed")
+
+    monkeypatch.setattr(stmap_mod, "stmap_xla", failing)
+    with pytest.raises(RuntimeError, match="lowering failed"):
+        stmap_mod.stmap(models.TdeClassic.create(distortion=0.1),
+                        _film_back(), 16, 8)
+    assert len(calls) == 1

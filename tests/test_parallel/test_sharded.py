@@ -1,7 +1,7 @@
 """Sharded solver tests.
 
-Runs on however many devices exist (1 real TPU here; the driver
-separately dry-runs N virtual devices).  The collective code path
+Runs on however many devices exist (8 virtual CPU devices under
+tests/conftest.py).  The collective code path
 (shard_map + psum + CG) executes regardless of device count, and the
 single-device result must agree with the unsharded solver — mesh-size
 independence is the correctness property."""

@@ -50,7 +50,8 @@ def test_jacobi_eigh_matches_numpy():
     a = m @ m.T
     w, v = linalg.jacobi_eigh(jnp.asarray(a))
     w_np, v_np = np.linalg.eigh(a)
-    # TPU f64 transcendentals are ~1e-7 relative; that floors Jacobi.
+    # Transcendentals bound the Jacobi sweeps' accuracy; tolerance
+    # leaves room for backends with ~1e-7 relative sin/cos.
     np.testing.assert_allclose(np.asarray(w), w_np, atol=1e-5, rtol=1e-5)
     # Eigenvectors up to sign.
     for i in range(9):

@@ -417,3 +417,39 @@ def test_bridge_hooks_run_ba_block_resumable():
     # unless accept-only-better reverted — with a real improvement it
     # must not revert here.
     assert res_int.error_final <= res_int.error_initial
+
+
+@pytest.mark.parametrize("num_frames,expected", [
+    (16, "cholesky"),   # 96 reduced unknowns
+    (49, "cholesky"),   # 294
+    (50, "cg"),         # 300: the auto threshold
+])
+def test_bridge_auto_linear_solver_threshold(monkeypatch, num_frames,
+                                             expected):
+    """With ba_linear_solver=None the bridge picks Cholesky for short
+    shots and CG from _BA_AUTO_CG_THRESHOLD reduced unknowns."""
+    import importlib
+
+    import bench
+
+    solve_mod = importlib.import_module(
+        "mayamatchmovesolver_tpu.solver.solve"
+    )
+    scene, attrs, _, cam, bundles, _ = bench._synthetic_tracked_scene(
+        num_frames, 4, dtype=np.float64
+    )
+    seen = []
+
+    class _Stop(Exception):
+        pass
+
+    def fake_solve(problem, cfg):
+        seen.append(cfg[5])
+        raise _Stop
+
+    monkeypatch.setattr(solve_mod, "_ba_solve_jit", fake_solve)
+    opts = SolverOptions(solver_type=registry.SOLVER_TYPE_BA_SCHUR)
+    with pytest.raises(_Stop):
+        solve(scene, attrs, np.arange(num_frames),
+              _pose_and_bundle_attrs(cam, bundles), opts)
+    assert seen == [expected]

@@ -323,7 +323,7 @@ def test_ba_early_stop_on_converged_problem():
 
 
 def test_ba_cg_linear_solver_matches_cholesky():
-    """The CG linear solver (the TPU-fast path for long shots) reaches
+    """The CG linear solver (the fast path for long shots) reaches
     the same solution as the exact Cholesky factorization, including
     the arrowhead border."""
     problem, cam_true, bnd_true = _synthetic_ba(
